@@ -1,7 +1,7 @@
 """`colmap`-compatible command-line interface.
 
 Reference: src/colmap/exe/colmap.cc:76-121 — the same 41 subcommand names
-dispatch to the TPU-native implementations. Run as
+dispatch to this package's implementations. Run as
 `python -m colmap_tpu <command> [options]`.
 """
 
@@ -20,7 +20,7 @@ import numpy as np
 
 def _setup_logging():
     logging.basicConfig(level=logging.INFO,
-                        format="%(levelname).1c %(message)s")
+                        format="%(levelname).1s %(message)s")
 
 
 def _om_parser(prog):
@@ -767,7 +767,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     _setup_logging()
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help", "help"):
-        print("colmap_tpu — TPU-native COLMAP. Commands:")
+        print("colmap_tpu — COLMAP as batched JAX programs. Commands:")
         for name in sorted(COMMANDS):
             print(f"  {name}")
         return 0

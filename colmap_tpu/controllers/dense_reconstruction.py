@@ -68,14 +68,10 @@ def _load_workspace(workspace_path: str, max_image_size: int = -1):
         path = os.path.join(workspace_path, "images", im.name)
         data = bitmap_mod.read_bitmap(path).data
         if max_image_size > 0 and max(data.shape[:2]) > max_image_size:
-            from PIL import Image as PILImage
-
             s = max_image_size / max(data.shape[:2])
             nh = max(int(round(data.shape[0] * s)), 1)
             nw = max(int(round(data.shape[1] * s)), 1)
-            data = np.asarray(PILImage.fromarray(
-                (data * 255).astype(np.uint8)).resize(
-                    (nw, nh), PILImage.BILINEAR), np.float32) / 255.0
+            data = bitmap_mod.resize(data, nh, nw)
             # continuous pixel coords scale exactly: K' = diag(sx, sy, 1) K
             sy, sx = nh / im.height, nw / im.width
             im.K = np.diag([sx, sy, 1.0]) @ im.K

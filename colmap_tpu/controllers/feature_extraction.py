@@ -2,7 +2,8 @@
 
 Re-design of the reference producer/consumer pipeline
 (reference: src/colmap/controllers/feature_extraction.cc:89-380 — resizer /
-extractor / writer threads over JobQueues) for TPU: the host reads + resizes
+extractor / writer threads over JobQueues) as batched device programs: the
+host reads + resizes
 images and groups them into same-resolution buckets; the device extracts a
 whole batch per jit call (the batch axis is the data-parallel sharding axis);
 a single writer flushes to SQLite. ImageReader semantics follow

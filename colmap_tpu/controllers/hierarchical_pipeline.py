@@ -2,7 +2,7 @@
 
 Reference: src/colmap/controllers/hierarchical_mapper.h:45-80 — normalized-
 cut scene clustering -> PARALLEL per-cluster incremental mapping (thread
-pool) -> model merging. The TPU design goes further than the reference on
+pool) -> model merging. This design goes further than the reference on
 the merge: instead of greedy pairwise Sim3 chaining, all pairwise cluster
 alignments become edges of a Sim3 pose graph that is jointly optimized
 (estimators/pose_graph.py) so loop-closure error distributes over the

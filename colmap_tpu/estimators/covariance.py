@@ -5,7 +5,7 @@ camera-pose covariances by eliminating the 3D points from the BA Hessian
 (Schur complement on the reduced camera system) and point covariances by
 back-substitution.
 
-TPU design: residual Jacobians come from the same autodiff program as the
+Design: residual Jacobians come from the same autodiff program as the
 BA solver (estimators/bundle_adjustment._obs_residual_and_jac, one fused
 device computation); the sparse Schur assembly/inversion is host-side numpy
 (covariance is an offline analysis op, O(P^3) in the number of poses).

@@ -3,7 +3,7 @@
 Reference capability: src/colmap/estimators/essential_matrix.h:22,62 (5pt via
 polynomial solve, 8pt with essential projection).
 
-TPU-native design of the 5-point solver: the classical Nistér elimination is
+Design of the 5-point solver: the classical Nistér elimination is
 re-expressed as dense, shape-static tensor algebra so thousands of minimal
 problems solve in one vmapped program:
   1. nullspace of the 5x9 epipolar system (batched SVD),
@@ -13,7 +13,7 @@ problems solve in one vmapped program:
   3. Gauss-Jordan via a single 10x10 solve,
   4. the 3x3 polynomial determinant -> degree-10 polynomial,
   5. roots via fixed-iteration Durand-Kerner (math/polynomial.py) instead of
-     a non-symmetric eigensolver (unsupported on TPU).
+     a non-symmetric eigensolver (not batchable on accelerators).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Generalized (multi-camera rig) absolute pose estimation.
 
 Reference: src/colmap/estimators/generalized_absolute_pose.h (GP3P),
-generalized_pose.h (EstimateGeneralizedAbsolutePose). The TPU design
+generalized_pose.h (EstimateGeneralizedAbsolutePose). This design
 replaces the algebraic GP3P minimal solver with per-camera P3P hypotheses
 lifted to the rig frame (a hypothesis from camera c's triple gives
 rig_from_world = inv(cam_from_rig_c) * cam_from_world_c), scored against
@@ -144,7 +144,7 @@ def estimate_generalized_relative_pose(
     """Relative pose between two RIG positions (reference:
     estimators/generalized_relative_pose.h GR6P).
 
-    TPU design: hypotheses come from same-camera 5-point essential solves
+    Design: hypotheses come from same-camera 5-point essential solves
     (a same-camera correspondence subset gives cam_from_cam' = E-pose, and
     rig2_from_rig1 = inv(cam_from_rig) o cam2_from_cam1 o cam_from_rig —
     valid up to the E-pose scale ambiguity, which the cross-camera

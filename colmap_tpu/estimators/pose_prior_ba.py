@@ -5,7 +5,7 @@ PosePriorBundleAdjuster — adds per-image position-prior residuals
 (PositionPriorError cost functor, estimators/cost_functions.h) so the model
 stays registered to the prior frame (GPS/ENU) during BA.
 
-TPU design: matrix-free LM (jvp/vjp Hessian products + CG) over poses and
+Design: matrix-free LM (jvp/vjp Hessian products + CG) over poses and
 points with two residual groups — reprojection and weighted
 projection-center priors. The prior weight is 1/sigma per axis.
 """

@@ -4,7 +4,7 @@ Reference: src/colmap/estimators/bundle_adjustment.h:201 RigBundleAdjuster —
 images of a rig snapshot share one rig pose plus per-camera rig extrinsics
 (cam_from_world = cam_from_rig * rig_from_world).
 
-TPU design: a matrix-free Levenberg-Marquardt over the stacked parameter
+Design: a matrix-free Levenberg-Marquardt over the stacked parameter
 blocks (rig snapshot poses, cam_from_rig extrinsics, points). The normal
 equations are never materialized — Hv products come from jvp/vjp through
 the batched projection residual, solved with CG. This handles the

@@ -1,7 +1,7 @@
 """Shared estimator helpers (batched, f32-safe).
 
 Reference: src/colmap/estimators/utils.h — point centering/normalization for
-DLT-style solvers (essential for float32 conditioning on TPU).
+DLT-style solvers (essential for float32 conditioning).
 """
 
 from __future__ import annotations

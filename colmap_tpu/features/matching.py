@@ -1,23 +1,22 @@
-"""Descriptor matching as batched int8 MXU GEMMs + fused ratio/cross checks.
+"""Descriptor matching: the plain reference and the shared selection rules.
 
 Reference: SiftCPUFeatureMatcher (src/colmap/feature/sift.cc:1269,
 FindBestMatchesBruteForce :1003): distance = arccos of the normalized uint8
 descriptor dot product, ratio test 0.8, max distance 0.7, cross check.
 
-TPU re-design: SIFT descriptors are uint8, so the pair GEMM runs on the
-MXU's int8 path (exact int32 accumulation, 2-4x bf16 throughput). uint8
-doesn't fit int8, so descriptors are stored centered (d - 128) and the
-exact uint8 dot product is recovered with a rank-1 correction from
-precomputed row sums:
+SIFT descriptors are uint8, which does not fit int8, so descriptors are
+stored centered (d - 128) and the exact uint8 dot product is recovered
+with a rank-1 correction from precomputed row sums:
 
     a . b = (a-128).(b-128) + 128*sum(a) + 128*sum(b) - 128*128*128
 
-(bf16 was measured insufficient here: eps ~8e-3 near sim=1.0 collapses the
-top-2 distance gap the ratio test depends on.) A batch of image pairs
-matches in ONE program — (B, N, 128) x (B, M, 128) batched GEMM + fused
-top-2 / ratio / cross-check reductions — replacing the reference's matcher
-thread pool with a single pjit-able op that shards over pair blocks
-(SURVEY §2.11).
+Here the centered product runs int8 x int8 -> int32, which is exact. (The
+similarity itself must stay f32: bf16 eps ~8e-3 near sim=1.0 collapses the
+top-2 distance gap the ratio test depends on.) `match_pairs_batch` is the
+plain reference: it materializes each pair's full similarity matrix. The
+production matcher is the fused kernel in `features/pallas_matcher.py`,
+which keeps the similarity tiles on chip and selects with
+`select_from_statistics` below.
 """
 
 from __future__ import annotations
@@ -59,6 +58,12 @@ def prepare_descriptors(desc_u8, valid=None) -> DescriptorBlock:
     return DescriptorBlock(centered=centered, row_sum=row_sum, inv_norm=inv_norm, valid=valid)
 
 
+# The one compiled form of the preparation: the pooled and the sharded
+# matcher paths both use it, so their inverse norms agree to the bit (an
+# eager 1 / sqrt and a compiled rsqrt differ in the last bits on the GPU).
+prepare_descriptor_batch = jax.jit(jax.vmap(prepare_descriptors))
+
+
 def _cosine_similarities(b1: DescriptorBlock, b2: DescriptorBlock) -> jax.Array:
     """Exact normalized uint8 dot products (N, M) in float32."""
     dots_c = jax.lax.dot_general(
@@ -80,9 +85,8 @@ def _cosine_similarities(b1: DescriptorBlock, b2: DescriptorBlock) -> jax.Array:
 def _select_matches(sims, b1: DescriptorBlock, b2: DescriptorBlock,
                     options: MatchingOptions):
     sims = jnp.where(b1.valid[:, None] & b2.valid[None, :], sims, -jnp.inf)
-    # best + second-best via two max passes — lax.top_k(k=2) sorts every
-    # row, which dominated the whole matcher on TPU (43ms of 52ms for an
-    # 8192^2 pair); the masked double-max is three fused reductions
+    # best + second-best via two max passes (lax.top_k(k=2) would sort
+    # every row); the masked double-max is three fused reductions
     best_sim = jnp.max(sims, axis=1)
     best_idx = jnp.argmax(sims, axis=1).astype(jnp.int32)
     cols = jax.lax.broadcasted_iota(jnp.int32, sims.shape, 1)
@@ -121,135 +125,23 @@ def match_pairs_batch(b1: DescriptorBlock, b2: DescriptorBlock,
     return jax.vmap(lambda a, b: match_descriptors(a, b, options))(b1, b2)
 
 
-@partial(jax.jit, static_argnames=("options", "tile_m"))
-def match_pairs_batch_scan(b1: DescriptorBlock, b2: DescriptorBlock,
-                           options: MatchingOptions = MatchingOptions(),
-                           tile_m: int = 1024) -> jax.Array:
-    """Tiled fused matcher in pure XLA: lax.scan over M tiles with running
-    forward top-2 and reverse argmax carries (flash-attention-style).
+def select_from_statistics(best, second, idx, rev_idx, valid1,
+                           options: MatchingOptions) -> jax.Array:
+    """Ratio, distance and cross checks from the per-row statistics.
 
-    Equivalent to match_pairs_batch but never materializes the (B, N, M)
-    similarity tensor (1 GB f32 at 16x4096^2) and never lets XLA recompute
-    the pair GEMM per reduction — each tile's (B, N, TM) similarities are
-    consumed on-chip by all four reductions in one fused loop body. The
-    GEMM runs bf16 x bf16 -> f32 which is EXACT for centered uint8
-    descriptors (values in [-128, 127] are exactly representable in bf16;
-    each 128-term product sum stays < 2^24). Single pass also covers the
-    cross-check (reverse argmax), halving the GEMM work of a two-pass
-    implementation.
+    best/second/idx: (B, N) best and second-best similarity and best target
+    index per query row; rev_idx: (B, M) best query row per target column.
     """
-    B, n = b1.centered.shape[:2]
-    m = b2.centered.shape[1]
-    tile_m = min(tile_m, m)
-    if m % tile_m:
-        return match_pairs_batch(b1, b2, options)
-    c1 = b1.centered.astype(jnp.bfloat16)  # (B, N, 128)
-    c2t = jnp.swapaxes(b2.centered.astype(jnp.bfloat16), 1, 2)  # (B, 128, M)
-    mt = m // tile_m
-    c2_tiles = c2t.reshape(B, 128, mt, tile_m).transpose(2, 0, 1, 3)
-    rs2_tiles = b2.row_sum.reshape(B, mt, tile_m).transpose(1, 0, 2)
-    iv2_tiles = b2.inv_norm.reshape(B, mt, tile_m).transpose(1, 0, 2)
-    va2_tiles = b2.valid.reshape(B, mt, tile_m).transpose(1, 0, 2)
-
-    neg = jnp.float32(-3.0e38)
-
-    def body(carry, tile):
-        best, second, bidx, rbest, ridx, t = carry
-        c2_t, rs2_t, iv2_t, va2_t = tile
-        dots = jax.lax.dot_general(
-            c1, c2_t, dimension_numbers=(((2,), (1,)), ((0,), (0,))),
-            preferred_element_type=jnp.float32)  # (B, N, TM) exact
-        sims = (dots + 128.0 * b1.row_sum[:, :, None]
-                + 128.0 * rs2_t[:, None, :] - 128.0 ** 3)
-        sims = sims * (b1.inv_norm[:, :, None] * iv2_t[:, None, :])
-        fsims = jnp.where(va2_t[:, None, :], sims, neg)
-        t_best = jnp.max(fsims, axis=2)
-        t_arg = jnp.argmax(fsims, axis=2).astype(jnp.int32)
-        cols = jax.lax.broadcasted_iota(jnp.int32, fsims.shape, 2)
-        t_second = jnp.max(
-            jnp.where(cols == t_arg[:, :, None], neg, fsims), axis=2)
-        t_idx = t_arg + t * tile_m
-        new_best = jnp.maximum(best, t_best)
-        new_idx = jnp.where(t_best > best, t_idx, bidx)
-        new_second = jnp.maximum(jnp.minimum(best, t_best),
-                                 jnp.maximum(second, t_second))
-        # reverse (cross-check): argmax over query rows for this tile
-        rsims = jnp.where(b1.valid[:, :, None], sims, neg)
-        col_best = jnp.max(rsims, axis=1)  # (B, TM)
-        col_arg = jnp.argmax(rsims, axis=1).astype(jnp.int32)
-        rbest = jax.lax.dynamic_update_slice_in_dim(
-            rbest, col_best, t * tile_m, axis=1)
-        ridx = jax.lax.dynamic_update_slice_in_dim(
-            ridx, col_arg, t * tile_m, axis=1)
-        return (new_best, new_second, new_idx, rbest, ridx, t + 1), None
-
-    init = (jnp.full((B, n), neg), jnp.full((B, n), neg),
-            jnp.full((B, n), -1, jnp.int32),
-            jnp.full((B, m), neg), jnp.full((B, m), -1, jnp.int32),
-            jnp.int32(0))
-    (best, second, idx, rbest, ridx, _), _ = jax.lax.scan(
-        body, init, (c2_tiles, rs2_tiles, iv2_tiles, va2_tiles))
-
+    n = best.shape[1]
     best_dist = jnp.arccos(jnp.clip(best, -1.0, 1.0))
     second_dist = jnp.arccos(jnp.clip(second, -1.0, 1.0))
     ok = best > -1e20
     ok &= best_dist <= options.max_distance
     ok &= best_dist < options.max_ratio * second_dist
     if options.cross_check:
-        rev = jnp.where(rbest > -1e20, ridx, -1)  # (B, M)
-        rev_at_best = jnp.take_along_axis(rev, jnp.maximum(idx, 0), axis=1)
+        rev_at_best = jnp.take_along_axis(rev_idx, jnp.maximum(idx, 0), axis=1)
         ok &= rev_at_best == jnp.arange(n)[None, :]
-    return jnp.where(ok & b1.valid, idx, -1).astype(jnp.int32)
-
-
-_PALLAS_OK: dict = {}  # (backend, bf16) -> bool, probed once
-
-
-def match_pairs_batch_auto(b1: DescriptorBlock, b2: DescriptorBlock,
-                           options: MatchingOptions = MatchingOptions()
-                           ) -> jax.Array:
-    """Production dispatch on TPU: the Pallas fused matcher kernel —
-    A/B-measured over the tiled-scan XLA path (see PERF.md). The tile's
-    similarities never leave VMEM and one sweep produces forward top-2 +
-    reverse argmax. COLMAP_TPU_PALLAS_MATCHER selects the contraction:
-    "1" (default) = f32 MXU (exact, compiles on every probed runtime);
-    "bf16" = try the bf16 MXU kernel first (exact for centered uint8
-    descriptors and 4x the f32 MXU rate, but this runtime's Mosaic
-    rejects the lowering for the full production kernel — kept opt-in
-    until a runtime lowers it, so production never pays a failed-compile
-    probe); "0" = force the XLA scan matcher. Each variant is probed
-    once per process. Exact XLA everywhere else or when the capacity
-    isn't 128-tileable."""
-    import os
-
-    n, m = b1.centered.shape[1], b2.centered.shape[1]
-    if (jax.default_backend() != "cpu"
-            and n % 128 == 0 and m % 128 == 0):
-        env = os.environ.get("COLMAP_TPU_PALLAS_MATCHER", "1")
-        backend = jax.default_backend()
-        if env != "0":
-            from colmap_tpu.features.pallas_matcher import (
-                match_pairs_batch_pallas,
-            )
-
-            for bf16 in ((True, False) if env == "bf16" else (False,)):
-                if not _PALLAS_OK.get((backend, bf16), True):
-                    continue
-                try:
-                    out = match_pairs_batch_pallas(b1, b2, options,
-                                                   bf16_mxu=bf16)
-                    _PALLAS_OK[(backend, bf16)] = True
-                    return out
-                except Exception:  # Mosaic support varies across runtimes
-                    import logging
-
-                    logging.getLogger("colmap_tpu").warning(
-                        "Pallas matcher (bf16=%s) failed to compile on %s; "
-                        "trying the next matcher path for this process",
-                        bf16, backend)
-                    _PALLAS_OK[(backend, bf16)] = False
-        return match_pairs_batch_scan(b1, b2, options)
-    return match_pairs_batch(b1, b2, options)
+    return jnp.where(ok & valid1, idx, -1).astype(jnp.int32)
 
 
 def guided_match_descriptors(

@@ -2,9 +2,9 @@
 
 Reference: src/colmap/feature/pairing.h:177-362 (Exhaustive, Sequential,
 Spatial, Transitive, Imported, VocabTree). Pair generation is cheap host
-logic; the TPU design keeps generators as numpy index producers that feed
+logic; the generators stay numpy index producers that feed
 fixed-size pair *blocks* to the batched matcher (the block structure is the
-sharding axis for multi-chip matching).
+sharding axis for multi-device matching).
 """
 
 from __future__ import annotations

@@ -174,7 +174,7 @@ def quat_average(qs: jax.Array, weights: jax.Array | None = None) -> jax.Array:
         weights = jnp.ones(qs.shape[0], dtype=qs.dtype)
     qs = quat_normalize(qs)
     A = jnp.einsum("n,ni,nj->ij", weights, qs, qs)
-    # symmetric 4x4: eigh is TPU-supported
+    # symmetric 4x4: batched eigh
     _, vecs = jnp.linalg.eigh(A)
     q = vecs[:, -1]
     return q * jnp.where(q[0] < 0, -1.0, 1.0)

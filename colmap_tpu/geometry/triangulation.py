@@ -20,7 +20,7 @@ def triangulate_point(cam1_from_world: jax.Array, cam2_from_world: jax.Array,
     Returns world points (..., 3). Reference: TriangulatePoint
     (geometry/triangulation.cc) which solves the 4x4 DLT via SVD; here we
     build the 4x4 normal matrix A^T A and take its smallest eigenvector
-    (eigh is TPU-friendly; A is 4x4 so this is exact and fast).
+    (batched eigh; A is 4x4 so this is exact and fast).
     """
     P1 = rigid3.to_matrix(cam1_from_world)  # (..., 3, 4)
     P2 = rigid3.to_matrix(cam2_from_world)

@@ -1,7 +1,7 @@
 """Image warping / resampling kernels.
 
 Reference: src/colmap/image/warp.h (WarpImageBetweenCameras,
-WarpImageWithHomography). The TPU design expresses every warp as a dense
+WarpImageWithHomography). This design expresses every warp as a dense
 bilinear gather over a target pixel grid — one fused XLA program per image
 (batchable over a leading axis).
 """

@@ -1,7 +1,8 @@
 """Polynomial root finding as fixed-iteration JAX programs.
 
 Reference capability: src/colmap/math/polynomial.h (companion-matrix +
-Durand-Kerner). TPU has no general non-symmetric eig, so we use the
+Durand-Kerner). A general non-symmetric eig does not batch on
+accelerators, so we use the
 Aberth-Ehrlich / Durand-Kerner simultaneous iteration in complex arithmetic
 with a fixed iteration count — fully vmappable, so RANSAC can solve
 thousands of minimal-problem polynomials in one fused program.

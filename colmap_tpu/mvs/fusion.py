@@ -4,7 +4,7 @@ Reference: src/colmap/mvs/fusion.h:53-153 (StereoFusion::Run :145,
 Fuse :377-530): BFS traversal across consistent pixels with reprojection /
 depth / normal thresholds, fusing each consistent set into one point.
 
-TPU re-design: the per-pixel BFS chains become DENSE consistency checks —
+Re-design: the per-pixel BFS chains become DENSE consistency checks —
 for one reference image, all pixels are projected into all overlapping
 source views in one batched program (bilinear depth lookups, relative depth
 + normal-angle + reprojection gates), and the fused point is the average

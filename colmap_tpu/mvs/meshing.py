@@ -4,12 +4,12 @@ Reference: src/colmap/mvs/meshing.h:37-122 — PoissonMeshing (vendored
 screened PoissonRecon, ~9.5k LoC C++/OpenMP octree solver) and
 Delaunay meshing (CGAL + s-t graph cut).
 
-TPU re-design of the Poisson path: instead of an octree multigrid, the
+Re-design of the Poisson path: instead of an octree multigrid, the
 screened Poisson equation is solved ON A REGULAR GRID IN THE FOURIER
 DOMAIN — oriented points are splatted to a divergence field dV and the
 indicator chi solves (Laplacian - screen) chi = div V, which diagonalizes
 under the DFT: chi_hat = div_hat / (lap_eig - screen). 3D FFTs are one of
-the best-mapped ops on TPU (MXU-backed butterflies through XLA), so the
+the best-mapped ops on accelerators (cuFFT through XLA on the GPU), so the
 entire solve is three batched FFTs instead of a pointer-chasing octree.
 The iso-surface is extracted with a naive-surface-nets dual contouring
 (one vertex per sign-crossing cell, quads across crossed edges), which is

@@ -1,4 +1,4 @@
-"""PatchMatch multi-view stereo — TPU-native.
+"""PatchMatch multi-view stereo as batched device programs.
 
 Reference: src/colmap/mvs/patch_match.h:57-205 and the CUDA solver
 src/colmap/mvs/patch_match_cuda.cu (1,888 LoC): bilateral-NCC photometric
@@ -6,13 +6,13 @@ cost (PhotoConsistencyCostComputer :411), plane hypotheses (depth + normal),
 sequential 4-direction sweep propagation (SweepFromTopToBottom :896), Monte
 Carlo source-image sampling, optional geometric consistency.
 
-TPU re-design — NOT a sweep translation:
+Re-design — NOT a sweep translation:
 
 - **Checkerboard (red-black) propagation** instead of sequential sweeps:
   every half-iteration updates half the pixels from the plane hypotheses of
   their 4 neighbors, in ONE dense data-parallel program. The reference's
-  sweep is inherently serial along the sweep axis (a bad fit for a 8x128
-  VPU); the checkerboard scheme (used by GPU PatchMatch derivatives like
+  sweep is inherently serial along the sweep axis (a bad fit for wide
+  data-parallel hardware); the checkerboard scheme (used by GPU PatchMatch derivatives like
   Gipuma/ACMH) converges comparably and keeps the whole image resident as
   dense arrays.
 - The plane-induced warp is evaluated in closed form per pixel and window

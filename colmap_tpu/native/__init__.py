@@ -131,7 +131,7 @@ def match_descriptors_u8(d1: np.ndarray, d2: np.ndarray,
                          num_threads: int = -1) -> np.ndarray:
     """CPU brute-force SIFT matching; returns (n1,) int32 indices (-1 = none).
 
-    Semantics mirror the TPU matcher (features/matching.py) and the
+    Semantics mirror the device matcher (features/matching.py) and the
     reference FindBestMatchesBruteForce.
     """
     d1 = np.ascontiguousarray(d1, np.uint8)

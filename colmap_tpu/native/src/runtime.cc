@@ -12,9 +12,8 @@
 //                          finalization)
 //   - ct_match_descriptors_u8: multi-threaded uint8 descriptor matching
 //                          with ratio + distance + cross-check tests — the
-//                          CPU fallback path when no TPU is attached
-//                          (the TPU path is the int8 MXU GEMM in
-//                          features/matching.py)
+//                          host-side matcher (the device path is the
+//                          fused kernel in features/pallas_matcher.py)
 //   - ct_hamming_dist:    popcount Hamming distances for the retrieval
 //                          inverted files
 //

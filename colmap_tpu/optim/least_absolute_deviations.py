@@ -1,7 +1,7 @@
 """Least absolute deviations (L1) linear solver via IRLS.
 
 Reference: src/colmap/optim/least_absolute_deviations.h — used by the
-coordinate-frame/Manhattan-world estimation. The TPU form is a fixed-
+coordinate-frame/Manhattan-world estimation. This form is a fixed-
 iteration IRLS loop (each iteration one weighted least-squares solve, all
 batched linear algebra), fully jittable.
 """

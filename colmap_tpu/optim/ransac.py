@@ -1,14 +1,14 @@
 """Batched RANSAC / LO-RANSAC as a single fused JAX program.
 
 The reference's RANSAC (src/colmap/optim/ransac.h:77-120, loransac.h:51) is a
-sequential trial loop with dynamic termination. The TPU-native re-design
+sequential trial loop with dynamic termination. The batched re-design
 inverts this: solve a *fixed budget* of minimal problems simultaneously
 (vmapped solver), score every hypothesis against every observation with one
 batched residual evaluation (a GEMM-shaped op), pick the best, and run a
 fixed number of local-optimization refits on the inlier set. The fixed
 budget is chosen so that the success probability matches or exceeds the
 reference's adaptive loop at its default confidence (0.9999) for inlier
-ratios >= min_inlier_ratio, while mapping to dense TPU compute.
+ratios >= min_inlier_ratio, while mapping to dense device compute.
 
 Support scoring uses MSAC-style truncated quadratic loss (never worse than
 plain inlier counting, subsumes the reference's InlierSupportMeasurer

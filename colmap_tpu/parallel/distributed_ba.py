@@ -9,8 +9,8 @@ across the mesh data axis via shard_map in one of two regimes:
   pose indices, and rebuilds the pose-major gather layouts on device
   (estimators/bundle_adjustment.build_gather_layouts_traced). Pose block
   reductions (Hpp, gp, the SCHUR_JACOBI preconditioner, the CG pose
-  updates) are shard-local; point and camera block reductions psum over
-  ICI because tracks span shards. This is the same fast LM kernel the
+  updates) are shard-local; point and camera block reductions psum across
+  devices because tracks span shards. This is the same fast LM kernel the
   single-device mapper runs (no segment-sum fallback), just with
   collectives at the replicated axes — per SURVEY.md §2.11's
   "per-shard Hessian assembly + Schur-complement reduction with

@@ -1,9 +1,10 @@
-"""Device-mesh helpers for multi-chip sharding.
+"""Device-mesh helpers for multi-device sharding.
 
 The reference's parallelism surface (threads + multi-GPU round-robin,
 SURVEY.md §2.11) maps to JAX device meshes: the observation/pair batch axes
 shard over the mesh, and the BA/matching reductions turn into psum
-collectives riding ICI.
+collectives. The mesh is one flat axis: the GPUs of a host reach each
+other all to all over NVLink, so the algorithm alone decides the layout.
 """
 
 from __future__ import annotations

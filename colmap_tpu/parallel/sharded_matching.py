@@ -1,28 +1,56 @@
-"""Multi-chip sharded descriptor matching.
+"""Multi-device sharded descriptor matching.
 
 Reference parallelism surface: block-wise exhaustive matching distributed
 over GPU worker threads (src/colmap/feature/pairing.h:41-47,
-controllers/feature_matching_utils.cc). TPU design: the pair-block axis is
-sharded over the device mesh — every chip matches its slice of pair blocks
-with the same int8 GEMM program (features/matching.py), no collectives
-needed until the host gathers the match indices. For the O(N^2) exhaustive
-problem this is the DP axis of BASELINE.json's multi-host matching config;
-descriptors are replicated (or ring-passed for very large N — the
-all_gather variant below).
+controllers/feature_matching_utils.cc). Here the pair-block axis is
+sharded over the device mesh — every device runs the fused matcher kernel
+(features/pallas_matcher.py) on its slice of the pair block, with no
+collectives until the host gathers the match indices. For problems whose
+descriptors do not fit one device, the all_gather variant below shards the
+images instead.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Optional
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from colmap_tpu.features import matching as matching_mod
-from colmap_tpu.parallel.mesh import DATA_AXIS, make_mesh
+from colmap_tpu.features import pallas_matcher
+from colmap_tpu.parallel.mesh import DATA_AXIS
+
+
+def _shard_map(fn, mesh, in_specs, out_specs):
+    # check_vma=False: the kernel's pallas_call carries no replication rule
+    return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                     check_vma=False)
+
+
+def match_pairs_sharded(mesh, b1: matching_mod.DescriptorBlock,
+                        b2: matching_mod.DescriptorBlock,
+                        options: matching_mod.MatchingOptions
+                        = matching_mod.MatchingOptions()) -> jax.Array:
+    """The fused matcher on each device's slice of the pair axis.
+
+    b1/b2 hold batched arrays whose leading (pair) axis is a multiple of
+    the mesh size. Returns (B, N) int32 match indices.
+    """
+    return _sharded_matcher(mesh, options)(b1, b2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_matcher(mesh, options: matching_mod.MatchingOptions):
+    """One jitted program per (mesh, options), so pair blocks after the
+    first reuse its trace instead of lowering the kernel again."""
+    fn = _shard_map(lambda a, b: pallas_matcher.match_pairs(a, b, options),
+                    mesh, in_specs=(P(DATA_AXIS), P(DATA_AXIS)),
+                    out_specs=P(DATA_AXIS))
+    return jax.jit(fn)
 
 
 def match_pair_blocks_sharded(
@@ -42,26 +70,11 @@ def match_pair_blocks_sharded(
     assert B % n_dev == 0, f"pad pair blocks to a multiple of {n_dev}"
 
     shard = NamedSharding(mesh, P(DATA_AXIS))
-
-    def prep(d, v):
-        b = matching_mod.prepare_descriptors(
-            jnp.asarray(d.reshape(-1, 128)), jnp.asarray(v.reshape(-1)))
-        return jax.tree.map(
-            lambda x: x.reshape((B,) + ((d.shape[1],) + x.shape[1:])), b)
-
-    b1 = prep(d1_u8, v1)
-    b2 = prep(d2_u8, v2)
-    b1 = jax.tree.map(lambda x: jax.device_put(x, shard), b1)
-    b2 = jax.tree.map(lambda x: jax.device_put(x, shard), b2)
-
-    @jax.jit
-    def run(b1, b2):
-        return jax.vmap(
-            lambda a, b: matching_mod.match_descriptors(a, b, options)
-        )(b1, b2)
-
-    out = run(b1, b2)
-    return np.asarray(out)
+    prep = matching_mod.prepare_descriptor_batch
+    b1 = prep(jnp.asarray(d1_u8), jnp.asarray(v1))
+    b2 = prep(jnp.asarray(d2_u8), jnp.asarray(v2))
+    b1, b2 = jax.device_put((b1, b2), shard)
+    return np.asarray(match_pairs_sharded(mesh, b1, b2, options))
 
 
 def exhaustive_match_all_gather(
@@ -70,47 +83,31 @@ def exhaustive_match_all_gather(
     valid: np.ndarray,  # (I, N)
     options: matching_mod.MatchingOptions = matching_mod.MatchingOptions(),
 ) -> np.ndarray:
-    """All-pairs matching with image shards: each chip holds I/n_dev images
-    and matches them against ALL images via jax.lax.all_gather over ICI —
-    the ring-style analog of the reference's 50x50 block schedule for
-    problems where descriptors do not fit one chip.
+    """All-pairs matching with image shards: each device holds I/n_dev
+    images and matches them against ALL images via jax.lax.all_gather —
+    the analog of the reference's block schedule for problems where
+    descriptors do not fit one device.
 
     Returns (I, I, N) int32 match indices (row image -> column image).
     """
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-
     n_dev = mesh.devices.size
-    I = descriptors.shape[0]
+    I, N = descriptors.shape[:2]
     assert I % n_dev == 0, f"pad images to a multiple of {n_dev}"
-
-    d = jnp.asarray(descriptors)
-    v = jnp.asarray(valid)
-
-    def block(d_local, v_local, d_all, v_all):
-        # d_local: (I/n, N, 128); d_all: (I, N, 128)
-        def one_row(dl, vl):
-            b1 = matching_mod.prepare_descriptors(dl, vl)
-
-            def one_col(dc, vc):
-                b2 = matching_mod.prepare_descriptors(dc, vc)
-                return matching_mod.match_descriptors(b1, b2, options)
-
-            return jax.vmap(one_col)(d_all, v_all)
-
-        return jax.vmap(one_row)(d_local, v_local)
 
     def shard_fn(d_shard, v_shard):
         d_all = jax.lax.all_gather(d_shard, DATA_AXIS, axis=0, tiled=True)
         v_all = jax.lax.all_gather(v_shard, DATA_AXIS, axis=0, tiled=True)
-        return block(d_shard, v_shard, d_all, v_all)
+        n_local = d_shard.shape[0]
+        # every (local image, any image) pair as one batch for the kernel
+        rows = jnp.repeat(jnp.arange(n_local), I)
+        cols = jnp.tile(jnp.arange(I), n_local)
+        prep = jax.vmap(matching_mod.prepare_descriptors)
+        b1 = prep(d_shard[rows], v_shard[rows])
+        b2 = prep(d_all[cols], v_all[cols])
+        out = pallas_matcher.match_pairs(b1, b2, options)
+        return out.reshape(n_local, I, N)
 
-    fn = shard_map(
-        shard_fn, mesh=mesh,
-        in_specs=(P(DATA_AXIS), P(DATA_AXIS)),
-        out_specs=P(DATA_AXIS),
-    )
-    out = jax.jit(fn)(d, v)
+    fn = _shard_map(shard_fn, mesh, in_specs=(P(DATA_AXIS), P(DATA_AXIS)),
+                    out_specs=P(DATA_AXIS))
+    out = jax.jit(fn)(jnp.asarray(descriptors), jnp.asarray(valid))
     return np.asarray(out)

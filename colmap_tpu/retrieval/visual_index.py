@@ -2,7 +2,7 @@
 
 Reference: src/colmap/retrieval/visual_index.h:46-118 (hierarchical k-means
 quantizer, inverted files with 64-bit Hamming embedding, TF-IDF scoring),
-inverted_index.h / inverted_file.h. TPU design: quantization is batched
+inverted_index.h / inverted_file.h. Design: quantization is batched
 distance GEMMs down the tree; Hamming signatures are computed with one
 projection matmul + per-word median thresholds; query scoring accumulates
 idf^2-weighted, Hamming-distance-weighted votes with

@@ -2,7 +2,7 @@
 
 Reference: src/colmap/retrieval/vote_and_verify.h:40-70 (ACCV'16 Hough
 voting on a 2D similarity transform, followed by affine verification).
-The TPU form bins all tentative correspondences into the 4D transform
+This form bins all tentative correspondences into the 4D transform
 space (tx, ty, log-scale, rotation) with one scatter-add, then refines the
 best bin with a least-squares affine fit and counts inliers.
 """

@@ -3,7 +3,7 @@
 Capability parity with the reference Reconstruction
 (src/colmap/scene/reconstruction.h:59): cameras/images/points3D maps,
 observation add/delete, registration bookkeeping, normalization, Sim3
-transform, summary statistics. The TPU mapper keeps its *working* state in
+transform, summary statistics. The mapper keeps its *working* state in
 flat device arrays; this class is the interchange container used for IO,
 alignment, and evaluation.
 """

@@ -4,7 +4,7 @@ Reference: src/colmap/scene/scene_clustering.h:43-96 — hierarchical
 normalized multi-way cut (Metis) of the image match graph with
 `image_overlap` shared images between sibling clusters.
 
-TPU-stack design: the normalized cut is computed spectrally — the Fiedler
+Design: the normalized cut is computed spectrally — the Fiedler
 vector of the normalized graph Laplacian (scipy sparse eigensolver; the
 graph is host-scale) drives recursive bisection; overlap images are the
 strongest cross-cut neighbors, like the reference's overlapping-image

@@ -7,7 +7,7 @@ Parity target: src/colmap/sensor/models.h (model ids :82-96, param layouts
     img_from_cam:  (u, v) --distort--> (du, dv) --focal/principal--> (x, y)
     cam_from_img:  inverse (iterative Newton undistortion where needed)
 
-Design notes (TPU-first):
+Design notes (batched device programs):
   - params are padded to MAX_PARAMS so cameras batch into one array;
   - every function broadcasts over leading axes; model dispatch is either
     static (host knows the model) or via `lax.switch` with `apply_model`;

@@ -2,7 +2,7 @@
 
 Reference: src/colmap/util/base_controller.h:42 (BaseController: callback
 registry + stop-check injection) and util/threading.h:97 (Thread
-Start/Stop/Pause/Wait). The TPU pipelines are host loops around batched
+Start/Stop/Pause/Wait). The pipelines are host loops around batched
 device calls, so control is cooperative: long-running loops call
 `check_if_stopped()` between rounds — a paused controller blocks there
 until resumed, a stopped one unwinds gracefully (pipelines return the

@@ -2,7 +2,7 @@
 
 Reference: src/colmap/util/timer.h:36 (Timer with Print*), util/misc.h:45
 (PrintHeading1/2) and the per-stage ElapsedTime logs of the controllers.
-The TPU addition is `trace()` — a context manager around the JAX profiler
+The addition is `trace()` — a context manager around the JAX profiler
 so any pipeline stage can be captured for xprof/tensorboard.
 """
 

@@ -5,7 +5,7 @@ Implements the same algorithm class ceres uses for this problem size
 system -> dense Cholesky; reference
 src/colmap/estimators/bundle_adjustment.cc:336-385 selects *_SCHUR) in
 vectorized numpy/scipy on the host CPU, on the EXACT problem bench.py
-solves on the TPU (__graft_entry__._build_problem(500, 50k, 6 obs/pt)).
+solves on the device (__graft_entry__._build_problem(500, 50k, 6 obs/pt)).
 
 Jacobians come from vectorized central differences over the 6 pose-tangent
 + 3 point dofs (the dominant per-iteration cost in any CPU BA is the

@@ -26,11 +26,6 @@ def main():
     p.add_argument("--cprofile", action="store_true")
     args = p.parse_args()
 
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_tpu_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
     from colmap_tpu.controllers.incremental_pipeline import IncrementalPipeline
     from colmap_tpu.scene.database import Database
     from colmap_tpu.scene.database_cache import DatabaseCache

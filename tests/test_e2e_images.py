@@ -3,7 +3,7 @@
 The pixel-level analog of the reference ETH3D CI gate
 (scripts/python/benchmark_eth3d.py + controllers/incremental_mapper_test.cc):
 render a textured 3D room from known cameras, run the COMPLETE pipeline —
-TPU SIFT -> batched GEMM matching -> batched RANSAC verification ->
+SIFT -> fused matcher kernel -> batched RANSAC verification ->
 incremental mapping with batched-LM BA — and check per-image rotation /
 projection-center errors against ground truth after Sim3 alignment.
 """

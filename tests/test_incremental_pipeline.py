@@ -80,3 +80,20 @@ def test_pipeline_multi_device():
     rec = IncrementalPipeline(db, opts).run()
     assert rec is not None
     expect_equal_reconstructions(gt, rec, max_rot_deg=0.5, max_center=0.05)
+
+
+@pytest.mark.parametrize("stage", ["_map_round", "_global_refinement"])
+def test_mapping_errors_reach_the_caller(monkeypatch, stage):
+    """A fault inside a mapping round or the final refinement (a device
+    error, say) propagates: the pipeline neither retries nor returns the
+    model built so far."""
+    db = Database(":memory:")
+    synthesize_dataset(SyntheticDatasetOptions(
+        num_images=8, num_points3D=120, point2D_stddev=0.0), db)
+
+    def fail(self, *args, **kwargs):
+        raise RuntimeError("device fault")
+
+    monkeypatch.setattr(IncrementalPipeline, stage, fail)
+    with pytest.raises(RuntimeError, match="device fault"):
+        IncrementalPipeline(db).run()

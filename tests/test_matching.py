@@ -86,31 +86,6 @@ def test_match_pairs_batch(rng):
     np.testing.assert_array_equal(np.asarray(m), np.tile(np.arange(N), (B, 1)))
 
 
-def test_match_pairs_batch_scan_agrees(rng):
-    """The tiled-scan TPU matcher must agree with the exact XLA matcher,
-    including padding-row and cross-check semantics."""
-    B, N = 3, 256
-    d1 = rng.integers(0, 200, (B, N, 128)).astype(np.uint8)
-    d2 = np.empty_like(d1)
-    for b in range(B):
-        perm = rng.permutation(N)
-        d2[b] = np.clip(d1[b, perm].astype(int)
-                        + rng.integers(-3, 4, (N, 128)), 0, 255)
-    v1 = np.ones((B, N), bool)
-    v2 = np.ones((B, N), bool)
-    v2[0, : N // 4] = False
-    v1[1, : N // 8] = False
-    import jax
-
-    b1 = jax.vmap(matching.prepare_descriptors)(d1, jnp.asarray(v1))
-    b2 = jax.vmap(matching.prepare_descriptors)(d2, jnp.asarray(v2))
-    ref = np.asarray(matching.match_pairs_batch(b1, b2))
-    out = np.asarray(matching.match_pairs_batch_scan(b1, b2, tile_m=64))
-    assert (out == ref).mean() > 0.999
-    # no match may point at an invalid target row
-    assert not np.any((out[0] >= 0) & (out[0] < N // 4))
-
-
 def test_matches_to_pairs():
     m = np.array([3, -1, 0, -1, 7], dtype=np.int32)
     pairs = matching.matches_to_pairs(m)
@@ -239,3 +214,38 @@ def test_pool_eviction_matches_unpooled(rng):
     for k in t_big:
         np.testing.assert_array_equal(t_small[k]["matches"],
                                       t_big[k]["matches"])
+
+
+def test_guided_matching_pool_with_mixed_block_capacities():
+    """Guided matching on the pooled single-device path: a block whose
+    pow2 capacity is below the pool's (an earlier block grew the pool)
+    must size its keypoint arrays like the pooled descriptors."""
+    from colmap_tpu.controllers import feature_matching as fm
+    from colmap_tpu.scene.database import Database
+    from colmap_tpu.scene.synthetic import (SyntheticDatasetOptions,
+                                            synthesize_dataset)
+
+    db = Database(":memory:")
+    synthesize_dataset(SyntheticDatasetOptions(
+        num_images=4, num_points3D=600, point2D_stddev=0.2, seed=4), db)
+    ids = sorted(db.read_images().keys())
+    assert min(len(db.read_descriptors(i)) for i in ids[:2]) > 256
+    rng = np.random.default_rng(0)
+    for a, b in ((ids[0], ids[1]), (ids[2], ids[3])):
+        # the synthetic descriptors are random: plant the true
+        # correspondences (the synthetic matches) as noisy copies
+        m = db.read_matches(a, b)
+        da, dsc = db.read_descriptors(a), db.read_descriptors(b).copy()
+        noise = rng.integers(-3, 4, (len(m), 128))
+        dsc[m[:, 1]] = np.clip(da[m[:, 0]].astype(int) + noise, 0, 255)
+        db.write_descriptors(b, dsc)
+    for i in ids[2:]:  # the second block fits a 256 capacity
+        db.write_keypoints(i, db.read_keypoints(i)[:200])
+        db.write_descriptors(i, db.read_descriptors(i)[:200])
+    db.conn.execute("DELETE FROM matches")
+    db.conn.execute("DELETE FROM two_view_geometries")
+    opts = fm.FeatureMatchingOptions(feature_capacity=1024, block_pairs=1,
+                                     guided_matching=True)
+    stats = fm.match_pairs(db, [(ids[0], ids[1]), (ids[2], ids[3])], opts,
+                           seed=7)
+    assert stats.num_verified_pairs == 2

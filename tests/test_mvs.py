@@ -235,7 +235,7 @@ def test_consistency_graph_roundtrip(tmp_path, rng):
 def test_patch_match_vga_reference_defaults():
     """Depth accuracy at >=640x480 with the reference NCC window
     (window_radius=5 -> 11x11, sigma_spatial=window_radius): L1 bounds at
-    reference-default settings (VERDICT r1 item 8; reference
+    reference-default settings (reference
     mvs/patch_match.h:71-98 defaults)."""
     opts = synth.RoomDatasetOptions(num_images=3, width=640, height=480,
                                     focal=560.0, seed=6)

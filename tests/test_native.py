@@ -1,5 +1,5 @@
 """Native C++ runtime tests (union-find, CSR, matcher, hamming) + parity
-with the TPU matcher."""
+with the device matcher."""
 
 import numpy as np
 import pytest
@@ -49,7 +49,7 @@ def test_build_csr(rng):
         assert (keys[grp] == b).all()
 
 
-def test_native_matcher_parity_with_tpu_matcher(rng):
+def test_native_matcher_parity_with_device_matcher(rng):
     from colmap_tpu.features import matching as m
 
     d1 = rng.integers(0, 180, (300, 128)).astype(np.uint8)
@@ -61,9 +61,9 @@ def test_native_matcher_parity_with_tpu_matcher(rng):
     native_idx = native.match_descriptors_u8(d1, d2)
     b1 = m.prepare_descriptors(d1)
     b2 = m.prepare_descriptors(d2)
-    tpu_idx = np.asarray(m.match_descriptors(b1, b2))
-    agree = (native_idx == tpu_idx).mean()
-    assert agree > 0.98, f"native/TPU matcher agreement {agree:.3f}"
+    device_idx = np.asarray(m.match_descriptors(b1, b2))
+    agree = (native_idx == device_idx).mean()
+    assert agree > 0.98, f"native/device matcher agreement {agree:.3f}"
     # and both recover the planted permutation
     matched = native_idx >= 0
     assert matched.mean() > 0.9

@@ -1,4 +1,4 @@
-"""Tests for TPU-native SIFT extraction.
+"""Tests for SIFT extraction.
 
 Mirrors the reference test strategy (src/colmap/feature/sift_test.cc):
 synthetic-image invariants + repeatability under known warps + (when
@@ -35,7 +35,7 @@ def textured():
 
 
 def test_window_sampling_matches_gather(textured):
-    """The MXU window-sampling path must reproduce the gather path:
+    """The matmul window-sampling path must reproduce the gather path:
     identical keypoints (detection is shared) and near-identical
     descriptors (bilinear taps via separable hat-weight matmuls are the
     same arithmetic up to float association; nearest taps differ only on

@@ -136,3 +136,19 @@ def test_exhaustive_all_gather_matching(mesh8, rng):
     # feature k to feature k for most k (i != j)
     hits = (out[0, 1] == np.arange(N)).mean()
     assert hits > 0.9
+
+
+def test_sharded_matcher_traced_once_per_mesh_and_options(mesh8, rng):
+    """Pair blocks after the first reuse one jitted program: the matcher
+    is traced and lowered once per (mesh, options), not once per block."""
+    B, N = 8, 64
+    opts = matching_mod.MatchingOptions(max_ratio=0.75)
+    fn = sm._sharded_matcher(mesh8, opts)
+    assert sm._sharded_matcher(mesh8, opts) is fn
+    outs = []
+    for _ in range(3):
+        d1, d2, v, _ = _desc_pairs(rng, B, N)
+        outs.append(sm.match_pair_blocks_sharded(mesh8, d1, d2, v, v, opts))
+    assert fn._cache_size() == 1
+    assert sm._sharded_matcher(mesh8, matching_mod.MatchingOptions()) is not fn
+    assert all(o.shape == (B, N) for o in outs)
